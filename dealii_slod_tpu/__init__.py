@@ -1,13 +1,13 @@
-"""dealii_slod_tpu — TPU-native Super-Localized Orthogonal Decomposition (SLOD) framework.
+"""dealii_slod_tpu — Super-Localized Orthogonal Decomposition (SLOD) in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the deal.II-based
+A from-scratch JAX/XLA rebuild of the capabilities of the deal.II-based
 reference solver camillabelponer/dealii-slod (see /root/reference and SURVEY.md):
 LOD / SLOD multiscale finite-element solvers for scalar diffusion and linear
 elasticity on structured grids, with oversampled-patch basis construction,
 coarse operator assembly ``A_LOD = C^T A C``, reference fine/coarse FEM solves,
 error tables and field output.
 
-Design (TPU-first, not a port):
+Design (batched and accelerator-first, not a port):
 
 - Structured lexicographic grids; all mesh topology is integer index arithmetic
   (replacing deal.II Triangulation/DoFHandler, cf. reference tests/util.h:377-583).

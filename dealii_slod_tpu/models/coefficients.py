@@ -106,7 +106,7 @@ class ChannelField:
         if dim != 2:
             # the reference field is 2D-only (Elasticity.h:56-89); silently
             # extruding the (x, y) pattern along z would misrepresent a 3D
-            # channel geometry (VERDICT r2)
+            # channel geometry
             raise ValueError(
                 "ChannelField is defined for dim=2 only (the reference's "
                 "channel_parameter is an (x, y) pattern); for 3D use the "

@@ -38,16 +38,14 @@ class StencilOps:
         """Pure function: canvases -> stencil blocks (P, S, C, C).
 
         The cell-decomposed build with its (E, Kc, K2, C, C) intermediate
-        K-chunked to ~1 GB.  (The offset-loop roll build it replaced as
-        the large-P fallback re-gathered ~400 MB of canvases per stencil
-        offset — measured 16.5 s of the 28.3 s refine-4 3D elasticity
-        wall; the chunked cells build does the same contraction in
-        ~160 GFLOP of MXU matmul with no full-size T.)
+        K-chunked to ~1 GB.  (An offset-loop roll build re-gathers ~400 MB
+        of canvases per stencil offset at refine-4 3D elasticity; the
+        chunked cells build does the same contraction as ~160 GFLOP of
+        matmul with no full-size T.)
 
         When the full (E, K, O C^2) / (E, K2, O C^2) side tables would
         exceed ``cfg.stencil_side_budget_mb`` (refine-5 3D elasticity:
-        4.0 + 6.9 GB, which single-handedly HBM-OOMed the config on one
-        v5e), the build switches to `_stencil_build_cells_planes`: both
+        4.0 + 6.9 GB), the build switches to `_stencil_build_cells_planes`: both
         side tables are built and consumed one z-plane chunk at a time,
         so no full-size table ever materializes."""
         cfg = self.cfg
@@ -141,8 +139,8 @@ class StencilOps:
         sign=-1: out[q, k, :] = X[q + (k - ell), k, :] — the inverse map,
         i.e. the patch-row read G2[q, k] = T[e(q, k), k] with
         e = q + ks[k] - ell; off-lattice rows come out zero, which equals
-        the evalid mask (measured ~1.5 ms faster than the 442 MB row
-        gather it replaces at the 3D north-star shape, r5 s1).
+        the evalid mask (it replaces a 442 MB row gather at the 3D
+        refine-4 shape).
         ``slot_dims``: int (cubic slot grid) or per-spatial-axis extents;
         ``slot_base``: per-axis coordinate of slot (0, ..) when X carries
         a contiguous CHUNK of the slot grid (the plane-chunked build)."""
@@ -190,10 +188,8 @@ class StencilOps:
         (ravel is linear), and rows that leave the lattice on ANY axis
         are zeroed by the mask — exactly the per-axis clipping.  The
         reshape form makes XLA lay the intermediate out lattice-minor
-        (the concats act on lattice axes), lane-padding the small
-        trailing axes 4x at the refine-5 3D elasticity chunk shapes
-        (f32[32,32,32,1,5,5,81]: 1012 MB, 759 MB of it padding); this
-        form keeps every tensor (E, slots, rest) with the large fused
+        (the concats act on lattice axes), which pads the small trailing
+        axes where the layout is tiled; this form keeps every tensor (E, slots, rest) with the large fused
         ``rest`` minor."""
         cfg = self.cfg
         dim = cfg.dim
@@ -236,9 +232,8 @@ class StencilOps:
     def _slot_match_matrix(self):
         """Dense 0/1 matrix M[(k1, k2), j] of the slot-correlation relation
         k2 == k1 - delta_j (flattened over the extended slot grid) — the
-        whole correlation then is ONE MXU matmul instead of dim separable
-        einsums over tiny axes (whose (.., 5,5,5, 6,6,6) layouts tile-pad
-        ~28x on TPU)."""
+        whole correlation then is ONE matmul instead of dim separable
+        einsums over tiny (.., 5,5,5, 6,6,6) axes."""
         tab = self._cell_tables()
         K, K2 = tab["K"], tab["K2"]
         M3 = np.zeros((K, K2, self.n_stencil), dtype=np.float32)
@@ -255,13 +250,13 @@ class StencilOps:
         1. canvas pick: Y[q, (k, o)] = Phi_q[cnode(k, o)] — one ``take``
            with a shared constant index vector,
         2. lattice alignment: Pc[e, k, o] = Y[e + (ell - k), k, o] — static
-           pad/slice stacks per axis (`_shift_slots`; the old flat gather of
-           ~14M/24M elements was ~0.5 s on TPU),
+           pad/slice stacks per axis (`_shift_slots`, in place of a flat
+           gather of ~14M/24M elements),
         3. owned-node contraction T[e, k, m] = sum_{o,c} Pc . Ac,
         4. patch rows G2[q, k1] = T[e(q, k1), k1] (small row gather),
         5. slot correlation as ONE dense indicator matmul with
-           `_slot_match_matrix` (replaces the separable einsums whose tiny
-           trailing axes tile-padded ~28x).
+           `_slot_match_matrix` (in place of dim separable einsums over
+           tiny trailing axes).
 
         With ``n_chunks > 1`` steps 3-5 run per K-slot chunk, accumulating
         A_st directly — neither T nor G2 (each (P, K, K2, C, C): 3.7 GB at
@@ -337,8 +332,8 @@ class StencilOps:
         of slot z-planes at a time (the slowest slot axis — a contiguous
         row range of the x-fastest flat slot index), accumulating the
         stencil directly.  Peak residency drops from the full side tables
-        (4.0 + 6.9 GB at refine-5 3D elasticity — the allocation that
-        HBM-OOMed that config on one v5e) to a few chunk-size arrays; the
+        (4.0 + 6.9 GB at refine-5 3D elasticity) to a few chunk-size
+        arrays; the
         extra cost is re-issuing the canvas ``take`` once per
         (m-chunk, k-chunk) pair."""
         cfg = self.cfg
@@ -369,10 +364,9 @@ class StencilOps:
             else:
                 break
 
-        # every tensor in this build is rank-3 with a large minor axis:
-        # XLA's layout assignment lane-pads any tiny trailing axis
-        # (27 -> 128, 36 -> 128: 4-6x expansions measured on the 6D
-        # einsum form at refine-5 3D elasticity), so the basis-column
+        # every tensor in this build is rank-3 with a large minor axis
+        # (a tiny trailing axis such as 27 or 36 is padded wherever XLA
+        # tiles the layout), so the basis-column
         # axes (d, f) are peeled into static Python loops and the
         # component axis c is fused into the gather index itself
         own_oc = np.repeat(tab["own"][:, 0, :], C, axis=1)     # (E, O*C)
@@ -388,7 +382,8 @@ class StencilOps:
             """One canvas node gather per (side, chunk) — shared by all C
             basis columns (a flat (node, component, column) gather would
             need the canvas reshaped to (P, nodes C^2), and that reshape
-            materialized two full-canvas copies: 2 x 1.46 GB measured)."""
+            materializes two full-canvas copies, 2 x 1.46 GB at refine-5
+            3D elasticity)."""
             pl = spa ** (dim - 1)
             lo, hi = z0 * pl, z1 * pl
             cn = jnp.asarray(tab[f"cnode{which}"][lo:hi].reshape(-1))
@@ -410,7 +405,7 @@ class StencilOps:
             return self._shift_slots_flat(Y, dims, slot_base=base)
 
         # per-(d, f) accumulators (P, S): stacked/transposed once at the
-        # very end (accumulating (P, S, CC) directly would lane-pad CC)
+        # very end (a (P, S, CC) accumulator has a tiny trailing axis)
         A_parts = [jnp.zeros((P, self.n_stencil), self.dtype)
                    for _ in range(CC)]
         for mz0 in range(0, kappa + 1, zm):
@@ -422,8 +417,7 @@ class StencilOps:
                 kc = khi - klo
                 # hard sequencing: without it XLA schedules many chunk
                 # pairs' side tables live at once (the pairs only share
-                # the accumulation chain) — measured 57 GB HBM
-                # requirement at refine-5 3D elasticity
+                # the accumulation chain)
                 seq = jax.lax.optimization_barrier(
                     tuple(A_parts) + (Phi4, APhi4))
                 A_parts = list(seq[:CC])
@@ -442,8 +436,8 @@ class StencilOps:
                 for f in range(C):
                     # sequence the (f, d) sub-chains too: they only share
                     # Ac4/pc_ds, so XLA otherwise schedules several
-                    # 0.6 GB Ac_f/G2 temps live at once (4+ measured in
-                    # the refine-5 3D elasticity OOM report)
+                    # 0.6 GB Ac_f/G2 temps (refine-5 3D elasticity) live
+                    # at once
                     if C > 1:
                         seq = jax.lax.optimization_barrier(
                             tuple(A_parts) + (Ac4,) + tuple(pc_ds))
@@ -472,9 +466,9 @@ class StencilOps:
         built by per-axis pad/slice stacks over the coarse lattice (zero
         off-lattice — the domain-validity mask) and contracted with the
         stencil blocks.  A (2R+1)^dim-tap ``conv_general_dilated_patches``
-        was runtime-equivalent but its 3D many-channel lowering took
-        minutes of XLA compile time; a (P, S) random gather was ~20 ms per
-        matvec (gather-bound).  This form is 3(2R+1) static slices."""
+        has a 3D many-channel lowering that takes minutes of XLA compile
+        time, and a (P, S) random gather is gather-bound.  This form is
+        3(2R+1) static slices."""
         cfg, C = self.cfg, self.C
         R = self.stencil_R
         dim = cfg.dim
@@ -557,7 +551,7 @@ class StencilOps:
 
     def _use_direct_coarse(self) -> bool:
         """cfg.coarse_solve == "direct" applies below ``coarse_dense_cap``
-        (the dense factor is one MXU op chain; CG remains the cap-free
+        (the dense factor is one op chain; CG remains the cap-free
         path — and the reference's own solver, source/LOD.cc:976-1002)."""
         n = self.topo.n_patches * self.C
         return (getattr(self.cfg, "coarse_solve", "cg") == "direct"
@@ -567,8 +561,8 @@ class StencilOps:
         """rhs -> A_LOD^-1 rhs by dense Cholesky of the placement-embedded
         coarse matrix.  One factor + two triangular solves replaces the
         coarse CG's ~17 latency-bound iterations at the bench config
-        (the 4096^2 f32 factor is ~2e10 MXU flops — microseconds of
-        compute; the CG's cost is per-iteration dispatch, not flops)."""
+        (the 4096^2 f32 factor is ~2e10 flops; the CG's cost is its
+        sequential iterations, not flops)."""
         Ad = self.coarse_dense_matrix(A_st)
         L = jnp.linalg.cholesky(Ad)
 

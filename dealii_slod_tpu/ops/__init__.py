@@ -1,1 +1,1 @@
-from dealii_slod_tpu.ops import element, assembly, solvers, eig  # noqa: F401
+from dealii_slod_tpu.ops import element, assembly, solvers  # noqa: F401

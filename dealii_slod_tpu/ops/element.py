@@ -4,7 +4,7 @@ The reference assembles the FE_Q_iso_Q1 stiffness with explicit subcell loops
 over 2x2 Gauss points and 2^dim x 2^dim nodal couplings (reference
 include/Diffusion.h:111-207 scalar, include/Elasticity.h:163-299 vector; the
 loop structure is validated in tests/fe_q_iso_q1_01.cc / fe_q_iso_q1_02.cc).
-On TPU the same computation is a contraction of constant per-quadrature-point
+Here the same computation is a contraction of constant per-quadrature-point
 reference tensors with per-subcell coefficient values:
 
     A_sub[p, c] = sum_q  alpha[p, c, q] * K_grad[q]          (diffusion)

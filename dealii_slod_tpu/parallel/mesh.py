@@ -1,4 +1,4 @@
-"""Device-mesh utilities — the TPU-native replacement for the reference's
+"""Device-mesh utilities — the replacement for the reference's
 MPI patch partitioning.
 
 The reference's only scaling axis is patch data-parallelism: each MPI rank
@@ -8,7 +8,7 @@ source/LOD.cc:116-118) and the distributed Trilinos objects exchange data in
 ``compress()`` and CG dot products.  Here the same axis is a
 ``jax.sharding.Mesh`` dimension: the patch batch and all (P, ...) arrays are
 sharded over it, and XLA's SPMD partitioner inserts the collectives (the
-stencil neighbor gather becomes a halo exchange / all-gather over ICI, the
+stencil neighbor gather becomes a halo exchange / all-gather, the
 CG reductions become ``psum``) — zero custom communication code."""
 
 from __future__ import annotations

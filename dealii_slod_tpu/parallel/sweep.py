@@ -9,7 +9,7 @@ end-to-end SLOD step is one pure jitted function of the coefficient
 arrays (``LODSolver.build_step``), so a batch of S fields is just a new
 leading axis: ``vmap`` the step over it and shard THAT axis over the mesh
 — each device runs the full pipeline on its own fields, with zero
-communication (embarrassingly parallel, the ideal ICI load).
+communication (embarrassingly parallel).
 """
 
 from __future__ import annotations

@@ -27,7 +27,6 @@ def _config_fingerprint(cfg, n_components: int) -> str:
                  cfg.coef_seed, bool(cfg.reference_parity)],
         "coef_field": cfg.coef_field,
         "svd_threshold": cfg.svd_threshold,
-        "eig_solver": cfg.eig_solver,
         "n_components": n_components,
         "dtype": cfg.dtype,
     }

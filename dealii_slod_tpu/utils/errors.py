@@ -100,7 +100,7 @@ def error_norms(grid, et: ElementTensors, conn: np.ndarray, u: np.ndarray,
     linf = float(np.abs(ev).max())
     # deal.II's H1_norm includes the L2 part (VectorTools::H1_norm =
     # sqrt(L2^2 + H1_seminorm^2)); report both so the tables are
-    # side-by-side comparable with the reference (VERDICT r2 #4)
+    # side-by-side comparable with the reference
     h1 = float(np.sqrt(l2 * l2 + h1s * h1s))
     return {"L2": l2, "H1": h1, "H1_semi": h1s, "Linfty": linf}
 

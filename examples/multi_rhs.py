@@ -8,7 +8,7 @@ with `utils.checkpoint` the basis survives process restarts, so a serving
 process can answer load cases without ever re-running the basis stage.
 
     JAX_PLATFORMS=cpu python examples/multi_rhs.py
-    MR_DIM=3 MR_REFINE=4 python examples/multi_rhs.py      # TPU
+    MR_DIM=3 MR_REFINE=4 python examples/multi_rhs.py      # GPU
 """
 import os
 import sys
@@ -17,10 +17,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 import jax.numpy as jnp
 

@@ -1,6 +1,6 @@
 // Native runtime components for dealii_slod_tpu.
 //
-// TPU-native counterparts of the reference's C++ host-side machinery:
+// Host-side counterparts of the reference's C++ host-side machinery:
 //  - build_patches: the patch-window topology builder (replaces
 //    LOD::create_patches / create_mesh_for_patch, reference
 //    source/LOD.cc:122-244, :770-858 — the reference's own benchmark

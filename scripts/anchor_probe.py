@@ -1,5 +1,4 @@
-"""Exhaustive rand()-offset probe on the 0.0808367 golden anchor
-(VERDICT r3 #7).
+"""Exhaustive rand()-offset probe on the 0.0808367 golden anchor.
 
 The reference app (tests/Poisson_LOD_Example.cc) constructs
 ``Alpha(1, 100, 8)`` — 65536 unseeded glibc rand() draws — and runs plain

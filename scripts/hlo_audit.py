@@ -1,10 +1,9 @@
 """HLO audit of the jitted end-to-end step: op histogram, large
 transposes/copies, total FLOPs/bytes from XLA cost analysis.
 
-The r3 slice-stack window win was found exactly this way (a 131 MB
-lane-hostile transpose hiding behind conv_general_dilated_patches).  Run on
-the TPU backend to audit the real program (the CPU lowering replaces the
-Pallas kernels with lax fallbacks):
+The slice-stack window extraction was found this way (a 131 MB transpose
+hiding behind conv_general_dilated_patches).  Run on the GPU to audit the
+program the card runs:
 
     python scripts/hlo_audit.py                 # backend from environment
     AUDIT_PLATFORM=cpu python scripts/hlo_audit.py

@@ -2,9 +2,8 @@
 
 `bands_to_dense_mm`'s C > 1 path (ops/assembly.py) places every (o, c, d)
 band entry into a width-C*(W+1) row-group buffer and flat-slices the
-dense component-interleaved matrix — replacing a transpose to
-(nN, C, nN, C) whose minor-dim-C tile padding was a 128/C x HBM
-expansion (16 GB OOM at the 2D coarse embed).  Must equal the
+dense component-interleaved matrix — no transpose to (nN, C, nN, C)
+with a tiny minor axis C.  Must equal the
 brute-force scatter exactly for interior rows; wrap-around placements
 must vanish when off-grid band values are zero (the production
 invariant: clipped couplings carry zero weights)."""

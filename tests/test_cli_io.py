@@ -121,7 +121,7 @@ end
 
 def test_prm_lookup_is_segment_anchored(tmp_path):
     """A user parameter whose name merely ENDS with a known key must not
-    alias it (VERDICT r2: endswith-matching could collide across sections);
+    alias it (endswith-matching could collide across sections);
     the suffix match anchors at subsection boundaries only."""
     from dealii_slod_tpu.config import SLODConfig
     p = tmp_path / "alias.prm"

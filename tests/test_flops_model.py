@@ -1,5 +1,5 @@
-"""Pin bench.py's hand-maintained FLOP model to XLA's own cost analysis
-(VERDICT r3 #8): the analytic per-stage counts must track what the compiled
+"""Pin bench.py's hand-maintained FLOP model to XLA's own cost analysis:
+the analytic per-stage counts must track what the compiled
 pipeline actually executes, so reported TFLOPs/MFU stay honest as kernels
 evolve.
 
@@ -47,8 +47,7 @@ def _xla_vs_model(dim, refine, ell, problem):
         ca = ca[0]
     xla = float(ca.get("flops", 0.0))
     stages = bench.flops_model(dim, ell, 2, solver.C, solver.topo.n_patches,
-                               solver.n_stencil, slod=True, eig_sweeps=12,
-                               spec_mode="lapack", banded=True)
+                               solver.n_stencil, slod=True, banded=True)
     countable = sum(v for k, v in stages.items()
                     if k not in _NOT_XLA_COUNTABLE)
     return xla, countable

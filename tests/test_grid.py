@@ -163,8 +163,8 @@ def test_clipped_window_index_matches_bruteforce(dim):
 
 
 # ---------------------------------------------------------------------------
-# Full-depth golden diffs against the reference's .output files (VERDICT r3
-# #4): read the actual files from disk rather than re-typed constants.
+# Full-depth golden diffs against the reference's .output files: read the
+# actual files from disk rather than re-typed constants.
 # ---------------------------------------------------------------------------
 
 import os

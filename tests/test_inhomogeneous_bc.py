@@ -1,4 +1,4 @@
-"""Inhomogeneous Dirichlet data through the LOD path (VERDICT r1 #6).
+"""Inhomogeneous Dirichlet data through the LOD path.
 
 The reference never exercises g != 0 through LOD (its coarse `distribute`,
 LOD.cc:1001, is a no-op on DGQ0 and all its tests use bc = 0).  Here

@@ -1,225 +1,42 @@
-"""Fused VMEM SPD multi-RHS kernel (ops/patch_solve.py) tests."""
+"""The per-patch SPD multi-RHS solve (batched Cholesky + two triangular
+solves) at the SLOD patch widths (n interior dofs, k coarse right-hand
+sides)."""
 
-import numpy as np
-import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from dealii_slod_tpu.ops.patch_solve import fused_spd_multirhs
+from dealii_slod_tpu.ops.solvers import cholesky_factor, cholesky_solve
+
+# relative error bound per dtype for the well-conditioned test matrices
+TOL = {"float32": 2e-4, "float64": 1e-11}
 
 
-@pytest.mark.parametrize("n,k,nb,bs", [(200, 37, 64, 1), (64, 5, 32, 2),
-                                       (129, 129, 64, 3)])
-def test_fused_matches_dense_solve(n, k, nb, bs):
-    rng = np.random.default_rng(0)
-    P = 4
+def _spd(rng, P, n, k):
     M = rng.standard_normal((P, n, max(n // 3, 4)))
     A = np.einsum("bik,bjk->bij", M, M) + n * np.eye(n)
-    B = rng.standard_normal((P, n, k))
-    X, T = fused_spd_multirhs(jnp.asarray(A), jnp.asarray(B), nb=nb, bs=bs)
-    X_ref = np.stack([np.linalg.solve(A[i], B[i]) for i in range(P)])
-    L = np.linalg.cholesky(A)
-    Y = np.stack([np.linalg.solve(L[i], B[i]) for i in range(P)])
-    T_ref = np.einsum("bik,bij->bkj", Y, Y)
-    assert np.abs(np.asarray(X) - X_ref).max() < 1e-8 * np.abs(X_ref).max()
-    assert np.abs(np.asarray(T) - T_ref).max() < 1e-8 * np.abs(T_ref).max()
+    return A, rng.standard_normal((P, n, k))
 
 
-def test_fused_pipeline_matches_lax_path():
-    """The fused uniform chunk kernel must reproduce the lax path's basis
-    canvases (interpret mode on CPU, float64)."""
-    from dealii_slod_tpu.config import SLODConfig
-    from dealii_slod_tpu.models import DiffusionProblem, LODSolver
-
-    kw = dict(dim=2, n_global_refinements=3, n_subdivisions=2,
-              oversampling=2, lod_stabilization=True,
-              constant_coefficients=False, coef_seed=3, rhs="1", bc="0",
-              dtype="float64", write_output=False)
-    out = {}
-    for mode in ("lax", "fused"):
-        cfg = SLODConfig(**kw, patch_solver=mode)
-        s = LODSolver(cfg, DiffusionProblem(cfg), verbose=False)
-        s.compute_basis()
-        s.assemble_coarse_operator()
-        s.assemble_fine_rhs()
-        u = s.solve_coarse()
-        out[mode] = (np.asarray(u), np.asarray(s.A_stencil),
-                     np.asarray(s.Phi))
-    # the two paths compute T as PT^T(A^-1 PT) vs Y^T Y — equal in exact
-    # arithmetic; f64 roundoff is amplified ~1e7 by the SLOD spectral
-    # pseudo-inverse conditioning, so agreement is ~1e-8 (physical
-    # invariants), not 1e-15 (bitwise canvases)
-    # jacobi's row-normalized eigenvectors are non-orthogonal for near-null
-    # eigenpairs (direction error ~ eps * lam_max / lam), which perturbs the
-    # heavily-amplified small-sigma pseudo-inverse terms — agreement is at
-    # the conditioning level (~1e-4 relative), not machine precision
-    ua, ub = out["lax"][0], out["fused"][0]
-    assert np.abs(ua - ub).max() < 1e-4 * np.abs(ua).max()
-    Aa, Ab = out["lax"][1], out["fused"][1]
-    assert np.abs(Aa - Ab).max() < 1e-4 * np.abs(Aa).max()
-    np.testing.assert_allclose(out["lax"][2], out["fused"][2], atol=1e-5)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,k", [(50, 27), (125, 27), (375, 125)])
+def test_lax_patch_solve_matches_dense(n, k, dtype):
+    A, B = _spd(np.random.default_rng(n), 3, n, k)
+    X = cholesky_solve(cholesky_factor(jnp.asarray(A, dtype)),
+                       jnp.asarray(B, dtype))
+    X_ref = np.linalg.solve(A, B)
+    err = np.abs(np.asarray(X, np.float64) - X_ref).max()
+    assert err < TOL[dtype] * np.abs(X_ref).max()
 
 
-def test_fused_hoisted_eig_matches_lax_path():
-    """The chunk kernel's hoisted spectral stage (one batched Pallas Jacobi
-    call outside the vmap) must agree with the in-vmap lax path."""
-    import numpy as np
-    from dealii_slod_tpu.config import SLODConfig
-    from dealii_slod_tpu.models import DiffusionProblem, LODSolver
+def test_lax_patch_solve_under_vmap_matches_batched():
+    """The basis kernel solves one patch at a time under vmap; that must be
+    the same solve as the explicitly batched call."""
+    import jax
 
-    kw = dict(dim=2, n_global_refinements=3, n_subdivisions=2, oversampling=2,
-              lod_stabilization=True, constant_coefficients=False, coef_seed=3,
-              rhs="1", bc="0", dtype="float64", write_output=False)
-    out = {}
-    for mode, eig in (("lax", "lax"), ("fused", "jacobi")):
-        cfg = SLODConfig(**kw, patch_solver=mode, eig_solver=eig)
-        s = LODSolver(cfg, DiffusionProblem(cfg), verbose=False)
-        s.compute_basis()
-        s.assemble_coarse_operator()
-        s.assemble_fine_rhs()
-        u = s.solve_coarse()
-        out[mode] = (np.asarray(u), np.asarray(s.A_stencil))
-    # jacobi's row-normalized eigenvectors are non-orthogonal for near-null
-    # eigenpairs (direction error ~ eps * lam_max / lam), which perturbs the
-    # heavily-amplified small-sigma pseudo-inverse terms — agreement is at
-    # the conditioning level (~1e-4 relative), not machine precision
-    ua, ub = out["lax"][0], out["fused"][0]
-    assert np.abs(ua - ub).max() < 1e-4 * np.abs(ua).max()
-    Aa, Ab = out["lax"][1], out["fused"][1]
-    assert np.abs(Aa - Ab).max() < 1e-4 * np.abs(Aa).max()
-
-
-def test_gj_inverse_pallas_matches_inv():
-    """Batched Pallas Gauss-Jordan SPD inverse (interpret on CPU)."""
-    from dealii_slod_tpu.ops.patch_solve import gj_inverse_pallas
-
-    rng = np.random.default_rng(5)
-    B, n = 7, 61
-    M = rng.standard_normal((B, n, n))
-    A = np.einsum("bik,bjk->bij", M, M) + n * np.eye(n)
-    Ainv = np.asarray(gj_inverse_pallas(jnp.asarray(A), bs=4))
-    err = max(np.abs(Ainv[i] @ A[i] - np.eye(n)).max() for i in range(B))
-    assert err < 1e-9
-
-
-def test_fused_split_schur_exact():
-    """`fused_spd_multirhs_split` (the 3D-elasticity-sized 2x2 block-
-    Cholesky path) must match the direct solve and triple product
-    exactly — the Schur split is algebraically exact."""
-    import numpy as np
-    import jax.numpy as jnp
-    from dealii_slod_tpu.ops.patch_solve import fused_spd_multirhs_split
-
-    rng = np.random.default_rng(0)
-    P, n, k = 3, 300, 17
-    M = rng.standard_normal((P, n, 24))
-    A = jnp.asarray(np.einsum("bik,bjk->bij", M, M) + 24 * np.eye(n))
-    B = jnp.asarray(rng.standard_normal((P, n, k)))
-    X, T = fused_spd_multirhs_split(A, B)
-    Xr = jnp.linalg.solve(A, B)
-    np.testing.assert_allclose(np.asarray(X), np.asarray(Xr), rtol=1e-8,
-                               atol=1e-10)
-    Tr = np.einsum("bik,bij->bkj", np.asarray(B), np.asarray(Xr))
-    np.testing.assert_allclose(np.asarray(T), Tr, rtol=1e-8, atol=1e-10)
-
-
-@pytest.mark.parametrize("n,k,nb", [(200, 37, 64), (129, 129, 128),
-                                    (384, 80, 128)])
-def test_panel_matches_dense_solve(n, k, nb):
-    from dealii_slod_tpu.ops.patch_solve import panel_spd_multirhs
-
-    rng = np.random.default_rng(1)
-    P = 3
-    M = rng.standard_normal((P, n, max(n // 3, 4)))
-    A = np.einsum("bik,bjk->bij", M, M) + n * np.eye(n)
-    B = rng.standard_normal((P, n, k))
-    X, T = panel_spd_multirhs(jnp.asarray(A), jnp.asarray(B), nb=nb)
-    X_ref = np.stack([np.linalg.solve(A[i], B[i]) for i in range(P)])
-    T_ref = np.einsum("bik,bij->bkj", B, X_ref)
-    assert np.abs(np.asarray(X) - X_ref).max() < 1e-8 * np.abs(X_ref).max()
-    assert np.abs(np.asarray(T) - T_ref).max() < 1e-8 * np.abs(T_ref).max()
-
-
-def test_split_recursion_matches_dense_solve(monkeypatch):
-    """Force the recursive Schur split (small fake VMEM budget) and check
-    the exact-algebra claim against a dense solve."""
-    import dealii_slod_tpu.ops.patch_solve as ps
-
-    # budget so small that n=384 must split (but >= one 128 panel + rhs)
-    monkeypatch.setattr(ps, "_SOLVE_VMEM_BUDGET", 4 * (128 * 128 + 128 * 512))
-    rng = np.random.default_rng(2)
-    P, n, k = 2, 384, 37
-    M = rng.standard_normal((P, n, n // 3))
-    A = np.einsum("bik,bjk->bij", M, M) + n * np.eye(n)
-    B = rng.standard_normal((P, n, k))
-    X, T = ps.fused_spd_multirhs_split(jnp.asarray(A), jnp.asarray(B))
-    X_ref = np.stack([np.linalg.solve(A[i], B[i]) for i in range(P)])
-    T_ref = np.einsum("bik,bij->bkj", B, X_ref)
-    assert np.abs(np.asarray(X) - X_ref).max() < 1e-8 * np.abs(X_ref).max()
-    assert np.abs(np.asarray(T) - T_ref).max() < 1e-8 * np.abs(T_ref).max()
-
-
-def test_panel_knobs_reach_the_kernel(monkeypatch):
-    """cfg.panel_nb / cfg.panel_gj_bs flow from SLODConfig through
-    BasisKernels into panel_spd_multirhs / fused_spd_multirhs_split (the
-    r3 wiring used the kernel defaults, so BENCH_NB-style A/Bs silently
-    did nothing on those paths)."""
-    import dealii_slod_tpu.ops.patch_solve as ps
-    from dealii_slod_tpu.config import SLODConfig
-    from dealii_slod_tpu.models import DiffusionProblem, LODSolver
-
-    seen = {}
-
-    def fake_panel(A, B, nb=128, gj_bs=16):
-        seen["panel"] = (nb, gj_bs)
-        return ps.fused_spd_multirhs(A, B, interpret=True)
-
-    def fake_split(A, B, nb=128, bs=1, gj2=False):
-        seen["split"] = nb
-        seen["split_bs"] = bs
-        return ps.fused_spd_multirhs(A, B, interpret=True)
-
-    monkeypatch.setattr(ps, "panel_spd_multirhs", fake_panel)
-    monkeypatch.setattr(ps, "fused_spd_multirhs_split", fake_split)
-    kw = dict(dim=2, n_global_refinements=3, n_subdivisions=2,
-              oversampling=1, lod_stabilization=False,
-              constant_coefficients=True, rhs="1", bc="0", dtype="float64",
-              write_output=False, panel_nb=256, panel_gj_bs=32,
-              split_bs=2)
-    for mode, key in (("panel", "panel"), ("fused_split", "split")):
-        cfg = SLODConfig(**kw, patch_solver=mode)
-        s = LODSolver(cfg, DiffusionProblem(cfg), verbose=False)
-        s.compute_basis()
-    assert seen["panel"] == (256, 32)
-    assert seen["split"] == 256
-    assert seen["split_bs"] == 2
-
-
-def test_gj2_sweep_matches_inv():
-    """2x2-pivot block sweep `_gj_invert_spd2` == matrix inverse (f64)."""
-    from dealii_slod_tpu.ops.patch_solve import _gj_invert_spd2
-
-    rng = np.random.default_rng(11)
-    bs, nb = 3, 32
-    M = rng.standard_normal((bs, nb, nb))
-    A = np.einsum("bik,bjk->bij", M, M) + nb * np.eye(nb)
-    Ainv = np.asarray(_gj_invert_spd2(jnp.asarray(A), nb, bs))
-    err = max(np.abs(Ainv[i] @ A[i] - np.eye(nb)).max() for i in range(bs))
-    assert err < 1e-9
-
-
-def test_fused_gj2_matches_dense_solve():
-    """fused_spd_multirhs(gj2=True) == dense solve (interpret on CPU)."""
-    from dealii_slod_tpu.ops.patch_solve import fused_spd_multirhs
-
-    rng = np.random.default_rng(12)
-    P, n, k = 4, 150, 9
-    M = rng.standard_normal((P, n, 24))
-    A = jnp.asarray(np.einsum("bik,bjk->bij", M, M) + 24 * np.eye(n))
-    B = jnp.asarray(rng.standard_normal((P, n, k)))
-    X, T = fused_spd_multirhs(A, B, nb=64, bs=2, gj2=True)
-    Xr = jnp.linalg.solve(A, B)
-    np.testing.assert_allclose(np.asarray(X), np.asarray(Xr), rtol=1e-8,
-                               atol=1e-10)
-    Tr = np.einsum("bik,bij->bkj", np.asarray(B), np.asarray(Xr))
-    np.testing.assert_allclose(np.asarray(T), Tr, rtol=1e-8, atol=1e-10)
+    A, B = _spd(np.random.default_rng(5), 4, 60, 9)
+    one = jax.vmap(lambda a, b: cholesky_solve(cholesky_factor(a), b))
+    X1 = np.asarray(one(jnp.asarray(A), jnp.asarray(B)))
+    X2 = np.asarray(cholesky_solve(cholesky_factor(jnp.asarray(A)),
+                                   jnp.asarray(B)))
+    np.testing.assert_allclose(X1, X2, rtol=1e-12, atol=1e-14)

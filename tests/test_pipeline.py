@@ -207,7 +207,7 @@ def test_elasticity_parity_shares_rand_stream():
 
 
 def test_glibc_sampler_matches_compiled_c(tmp_path):
-    """VERDICT r1 #3/#7: the 'platform rand()' golden-anchor claim, made
+    """The 'platform rand()' golden-anchor claim, made
     checkable — compile the reference's 20-line sampling loop
     (Poisson_LOD_Example.cc:1483-1502 / Diffusion.h:28-36) with THIS
     machine's libc and require bit-identity with GlibcRand."""
@@ -266,7 +266,7 @@ def test_convergence_rates_multirow_table():
     ParsedConvergenceTable rows over refinements, LOD.h:111-115): with
     stabilization and l ~ log2(N) the L2 error vs the fine FEM solution
     must decay by >= 4x per refinement step, and the reported H1 norm must
-    be the FULL deal.II H1_norm = sqrt(L2^2 + seminorm^2) (VERDICT r2)."""
+    be the FULL deal.II H1_norm = sqrt(L2^2 + seminorm^2)."""
     from dealii_slod_tpu.utils.errors import ConvergenceTable
 
     table = ConvergenceTable("errLOD")
@@ -389,7 +389,7 @@ def test_nonstandard_discretizations(dim, s, l, r, tol):
 
 
 def test_poisson_lod_example_rhs_anchor_exact():
-    """The last open golden anchor, closed (VERDICT r3 #7): the reference's
+    """The last open golden anchor, closed: the reference's
     `rhs l2 norm = 0.0808367` (tests/Poisson_LOD_Example.output:5) was
     generated after 12 unseeded glibc rand() draws were consumed by library
     init BEFORE the Alpha(1, 100, 8) ctor (found by exhaustive offset scan,

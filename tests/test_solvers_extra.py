@@ -111,7 +111,7 @@ def test_two_level_stencil_variant_matches_dense():
 def test_cg_exact_iteration_count_and_converged_flag():
     """The chunked-while CG must report the exact per-iteration deal.II
     count and an explicit converged flag: a solve converging inside the
-    final chunk (ADVICE r2) or exactly at max_steps must not be flagged as
+    final chunk or exactly at max_steps must not be flagged as
     non-converged, and iterations never exceed max_steps."""
     from dealii_slod_tpu.ops.solvers import cg
 
@@ -152,7 +152,7 @@ def test_cg_exact_iteration_count_and_converged_flag():
 def test_channel_field_rejects_3d():
     """The reference channel_parameter is an (x, y)-only pattern
     (Elasticity.h:56-89); a silent 2D extrusion in 3D would misrepresent
-    the geometry (VERDICT r2) — constructing it with dim=3 must raise."""
+    the geometry — constructing it with dim=3 must raise."""
     import pytest
 
     with pytest.raises(ValueError):
@@ -162,7 +162,7 @@ def test_channel_field_rejects_3d():
 def test_two_level_cap_routes_to_stencil_variant():
     """Above ``two_level_dense_cap`` the fine preconditioner must use the
     cap-free stencil Chebyshev correction instead of materializing a
-    (P*C)^2 dense factor (VERDICT r2: the old 32768 cap allowed an 8.6 GB
+    (P*C)^2 dense factor (the old 32768 cap allowed an 8.6 GB
     host allocation)."""
     from dealii_slod_tpu.config import ReductionControl, SLODConfig
     from dealii_slod_tpu.models import DiffusionProblem, LODSolver

@@ -2,8 +2,7 @@
 
 `_stencil_build_cells(n_chunks > 1)` (models/stencil.py) accumulates the
 slot-correlation matmul per K-slot chunk so the (P, K, K2, C, C)
-intermediate (3.7 GB at refine-4 3D elasticity — the config where the old
-roll fallback cost 16.5 s of the 28.3 s wall) never materializes.  The K
+intermediate (3.7 GB at refine-4 3D elasticity) never materializes.  The K
 axis is data-parallel through the contraction and the indicator matmul is
 a sum over K, so the chunked result must be bitwise-identical algebra
 (identical to f.p. reassociation of the accumulation order)."""

@@ -4,7 +4,7 @@
 (E, K, O C^2) / (E, K2, O C^2) side tables one chunk of slot z-planes at a
 time, accumulating the stencil directly — the path taken when the full
 tables exceed ``cfg.stencil_side_budget_mb`` (refine-5 3D elasticity:
-4.0 + 6.9 GB of full tables HBM-OOMed one v5e).  Both side tables, the
+4.0 + 6.9 GB of full tables).  Both side tables, the
 product chunk, the inverse-shift patch-row read, and the slot-correlation
 indicator blocks are exercised per chunk; the result must equal the full
 build up to f.p. reassociation of the accumulation order."""

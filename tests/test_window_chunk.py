@@ -3,8 +3,8 @@
 `_window_stack_chunk` pulls one chunk's coefficient windows straight off
 the small padded lattice inside the chunk loop; the full precomputed
 window array (1.00 GB per coefficient + a full-size layout copy into the
-chunk consumer's layout at the 3D refine-5 elasticity config — measured
-HBM-OOM report, r05 s3) never materializes.  Must be BIT-identical to
+chunk consumer's layout at the 3D refine-5 elasticity config) never
+materializes.  Must be BIT-identical to
 the corresponding rows of `_window_stack`, and the end-to-end step must
 be bit-identical with the route forced on vs off."""
 

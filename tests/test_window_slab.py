@@ -2,8 +2,9 @@
 
 Above `_WINDOW_SLAB_BYTES` of output the window build runs as a
 sequential `lax.map` over slabs of the first lattice axis (the one-shot
-stacked intermediate gets a 4x lane pad at 3D scale configs — measured
-3.9 GB HBM-OOM temp at the refine-5 elasticity config, r05 s3).  The
+stacked intermediate is laid out lattice-minor with padded small axes
+at 3D scale configs, up to a 3.9 GB temp at the refine-5 elasticity
+config).  The
 slab path must be BIT-identical to the one-shot path for both the cell
 windows (`_coef_windows`, win = (2l+1)s) and the node windows
 (`_rhs_windows`, win = (2l+1)s + 1), including the zero-outside-domain
